@@ -94,10 +94,179 @@ def make_head_scene(radius: float = 0.24, center=(0.0, 0.03, 0.0),
 
 
 # ---------------------------------------------------------------------------
+# Procedural glasses: the try-on mesh of the hybrid scene
+# ---------------------------------------------------------------------------
+
+# Placement on the head above (mesh-world units), as the bench renders it:
+# the front sits ahead of the face, the temples run back along the sides
+# of the head, so from an orbit a temple passes behind the volume.
+GLASSES_T = (0.0, 0.1, 0.22)
+GLASSES_S = (0.25, 0.25, 0.25)
+GLASSES_VERSION = 1
+
+
+def _tube(center, radius: float, n_ring: int, closed: bool):
+    """Sweep a circle of `radius` along the polyline `center` (M, 3) ->
+    (positions, normals, tangents (.., 4), uvs, indices) with outward
+    counter-clockwise winding, so back-face culling keeps the near side."""
+    c = np.asarray(center, np.float64)
+    m = len(c)
+    if closed:
+        nxt, prv = np.roll(c, -1, 0), np.roll(c, 1, 0)
+    else:   # extrapolate one segment past each open end
+        nxt = np.concatenate([c[1:], 2 * c[-1:] - c[-2:-1]])
+        prv = np.concatenate([2 * c[:1] - c[1:2], c[:-1]])
+    tan = nxt - prv
+    tan /= np.linalg.norm(tan, axis=1, keepdims=True)
+    ref = np.where(np.abs(tan[:, 2:3]) < 0.9, [[0.0, 0.0, 1.0]],
+                   [[0.0, 1.0, 0.0]])
+    nrm = np.cross(ref, tan)
+    nrm /= np.linalg.norm(nrm, axis=1, keepdims=True)
+    bin_ = np.cross(tan, nrm)
+    ang = 2.0 * math.pi * np.arange(n_ring) / n_ring
+    ring = (np.cos(ang)[None, :, None] * nrm[:, None]
+            + np.sin(ang)[None, :, None] * bin_[:, None])   # (M, R, 3)
+    pos = c[:, None] + radius * ring
+    tng = np.broadcast_to(tan[:, None], ring.shape)
+    uv = np.stack(np.meshgrid(np.arange(m) / max(m - 1, 1),
+                              np.arange(n_ring) / n_ring, indexing="ij"), -1)
+    idx = []
+    for i in range(m if closed else m - 1):
+        i2 = (i + 1) % m
+        for j in range(n_ring):
+            j2 = (j + 1) % n_ring
+            a, b = i * n_ring + j, i2 * n_ring + j
+            c_, d = i * n_ring + j2, i2 * n_ring + j2
+            idx += [a, b, c_, c_, b, d]
+    idx = np.asarray(idx, np.int64).reshape(-1, 3)
+    p = pos.reshape(-1, 3)
+    nv = ring.reshape(-1, 3)
+    # orient every triangle so its geometric normal agrees with the
+    # surface normal (outward)
+    g = np.cross(p[idx[:, 1]] - p[idx[:, 0]], p[idx[:, 2]] - p[idx[:, 0]])
+    flip = np.sum(g * nv[idx].sum(1), -1) < 0
+    idx[flip] = idx[flip][:, [0, 2, 1]]
+    tan4 = np.concatenate([tng.reshape(-1, 3), np.ones((len(p), 1))], -1)
+    return p, nv, tan4, uv.reshape(-1, 2), idx
+
+
+def make_glasses_scene(rim_segments: int = 64, ring: int = 8,
+                       temple_segments: int = 20, bridge_segments: int = 12):
+    """Glasses GltfScene in object units (two rims, a bridge and two
+    temples swept as tubes; ~2.9k triangles at the defaults), untextured
+    PBR metal. The front lies in the z = 0 plane, the temples run to
+    -z; at GLASSES_S the frame is ~0.5 wide, as the head above is."""
+    from nerf_glasses_tpu.io.gltf import (GltfMaterial, GltfMesh, GltfNode,
+                                          GltfPrimitive, GltfScene)
+    parts = []
+    a = 2.0 * math.pi * np.arange(rim_segments) / rim_segments
+    for sx in (-1.0, 1.0):
+        rim = np.stack([sx * 0.52 + 0.42 * np.cos(a), 0.32 * np.sin(a),
+                        0.04 * np.cos(a) ** 2], -1)
+        parts.append(_tube(rim, 0.045, ring, closed=True))
+        # temple: hinge at the rim's outer edge, straight back, then a
+        # bend down behind the ear
+        s = np.linspace(0.0, 1.0, temple_segments)
+        z = -1.9 * s
+        y = 0.12 - 0.35 * np.clip((s - 0.8) / 0.2, 0.0, 1.0) ** 2
+        x = sx * (0.96 + 0.04 * s)
+        parts.append(_tube(np.stack([x, y, z], -1),
+                           0.04, ring, closed=False))
+    b = np.linspace(-0.12, 0.12, bridge_segments)
+    bridge = np.stack([b, 0.1 + 0.4 * (0.0144 - b * b), np.zeros_like(b)], -1)
+    parts.append(_tube(bridge, 0.035, ring, closed=False))
+
+    pos, nrm, tan, uv, idx = [], [], [], [], []
+    base = 0
+    for p, nv, t4, uvs, ii in parts:
+        pos.append(p)
+        nrm.append(nv)
+        tan.append(t4)
+        uv.append(uvs)
+        idx.append(ii + base)
+        base += len(p)
+    mat = GltfMaterial(name="frame", base_color_factor=np.array(
+        [0.08, 0.07, 0.07, 1.0], np.float32), metallic_factor=0.7,
+        roughness_factor=0.3)
+    prim = GltfPrimitive(
+        positions=np.concatenate(pos).astype(np.float32),
+        normals=np.concatenate(nrm).astype(np.float32),
+        tangents=np.concatenate(tan).astype(np.float32),
+        texcoords=np.concatenate(uv).astype(np.float32),
+        indices=np.concatenate(idx).reshape(-1).astype(np.uint32),
+        material=mat)
+    node = GltfNode()
+    node.name = "glasses"
+    node.mesh = GltfMesh(primitives=[prim])
+    scene = GltfScene()
+    scene.nodes = [node]
+    return scene
+
+
+def write_glasses_gltf(path: str, **kw) -> str:
+    """Write make_glasses_scene(**kw) as a self-contained glTF 2.0 file
+    (buffer embedded as a data URI) that io/gltf.py loads."""
+    import base64
+    import json
+    prim = make_glasses_scene(**kw).nodes[0].mesh.primitives[0]
+    mat = prim.material
+    arrays = [(prim.positions, "VEC3"), (prim.normals, "VEC3"),
+              (prim.tangents, "VEC4"), (prim.texcoords, "VEC2"),
+              (prim.indices, "SCALAR")]
+    buf = b""
+    views, accessors = [], []
+    for i, (arr, kind) in enumerate(arrays):
+        data = np.ascontiguousarray(arr).tobytes()
+        views.append({"buffer": 0, "byteOffset": len(buf),
+                      "byteLength": len(data)})
+        acc = {"bufferView": i, "count": int(arr.shape[0]), "type": kind,
+               "componentType": 5125 if kind == "SCALAR" else 5126}
+        if i == 0:
+            acc["min"] = arr.min(0).tolist()
+            acc["max"] = arr.max(0).tolist()
+        accessors.append(acc)
+        buf += data
+    doc = {
+        "asset": {"version": "2.0", "generator": "bench_scene.py"},
+        "scene": 0,
+        "scenes": [{"nodes": [0]}],
+        "nodes": [{"mesh": 0, "name": "glasses"}],
+        "meshes": [{"primitives": [{
+            "attributes": {"POSITION": 0, "NORMAL": 1, "TANGENT": 2,
+                           "TEXCOORD_0": 3},
+            "indices": 4, "material": 0}]}],
+        "materials": [{"name": mat.name, "pbrMetallicRoughness": {
+            "baseColorFactor": np.asarray(mat.base_color_factor).tolist(),
+            "metallicFactor": float(mat.metallic_factor),
+            "roughnessFactor": float(mat.roughness_factor)}}],
+        "accessors": accessors,
+        "bufferViews": views,
+        "buffers": [{"byteLength": len(buf),
+                     "uri": "data:application/octet-stream;base64,"
+                            + base64.b64encode(buf).decode()}],
+    }
+    with open(path, "w") as f:
+        json.dump(doc, f)
+    return path
+
+
+def get_glasses_gltf(cache_dir: str) -> str:
+    """Path of the procedural glasses glTF under `cache_dir`, written on
+    first use."""
+    path = os.path.join(cache_dir, f"glasses_v{GLASSES_VERSION}.gltf")
+    if not os.path.exists(path):
+        os.makedirs(cache_dir, exist_ok=True)
+        tmp = f"{path}.partial"
+        write_glasses_gltf(tmp)
+        os.replace(tmp, path)
+    return path
+
+
+# ---------------------------------------------------------------------------
 # Capture rig
 # ---------------------------------------------------------------------------
 
-def capture_cameras(n: int, phase: float = 0.0):
+def capture_cameras(n: int, phase: float = 0.0, res: int = W):
     """-> (packed (n,3,4) mesh-world cams for the mesh pass / NeRF
     render, xforms (n,3,4) NGP-space training matrices, focal px).
 
@@ -121,13 +290,13 @@ def capture_cameras(n: int, phase: float = 0.0):
         m[:, 2] = fwd
         m[:, 3] = eye + 0.5           # mesh world -> NGP cube
         xforms.append(m)
-    focal = W / (2.0 * V_LENGTH_QUIRK)
+    focal = res / (2.0 * V_LENGTH_QUIRK)
     return np.stack(packed), np.stack(xforms), focal
 
 
-def render_capture_images(scenes, cams_packed):
+def render_capture_images(scenes, cams_packed, res: int = W):
     """Ground-truth views via the repo's own mesh renderer ->
-    list of (H, W, 4) float32 linear premultiplied training targets."""
+    list of (res, res, 4) float32 linear premultiplied training targets."""
     from nerf_glasses_tpu.ops import triangles as tri_ops
     from nerf_glasses_tpu.ops.colors import srgb_to_linear
     mesh = tri_ops.build_mesh_arrays(scenes)
@@ -135,28 +304,28 @@ def render_capture_images(scenes, cams_packed):
     out = []
     for cam in cams_packed:
         color, _depth = tri_ops.render_mesh_pass(
-            mesh, xf, nm, cam, W, H, light_pos=[1.0, 1.0, 1.0])
+            mesh, xf, nm, cam, res, res, light_pos=[1.0, 1.0, 1.0])
         color = np.asarray(color, np.float32)
         lin = np.asarray(srgb_to_linear(color[..., :3]), np.float32)
         out.append(np.concatenate([lin, color[..., 3:]], -1))
     return out
 
 
-def build_capture_dataset():
+def build_capture_dataset(n_views: int = N_TRAIN, res: int = W):
     from nerf_glasses_tpu.io.dataset import ImageMetadata, NerfDataset
     from nerf_glasses_tpu.utils.bbox import BoundingBox
     scene = make_head_scene()
-    cams, xforms, focal = capture_cameras(N_TRAIN)
+    cams, xforms, focal = capture_cameras(n_views, res=res)
     ds = NerfDataset()
-    ds.n_images = N_TRAIN
-    ds.metadata = [ImageMetadata(resolution=(W, H),
+    ds.n_images = n_views
+    ds.metadata = [ImageMetadata(resolution=(res, res),
                                  focal_length=(focal, focal),
                                  principal_point=(0.5, 0.5))
-                   for _ in range(N_TRAIN)]
+                   for _ in range(n_views)]
     ds.xforms = xforms
     ds.xforms_end = xforms.copy()
-    ds.paths = [f"capture_{i}" for i in range(N_TRAIN)]
-    ds.images = render_capture_images([scene], cams)
+    ds.paths = [f"capture_{i}" for i in range(n_views)]
+    ds.images = render_capture_images([scene], cams, res)
     ds.render_aabb = BoundingBox([0.13, 0.16, 0.13], [0.87, 0.9, 0.87])
     ds.aabb_scale = 1
     return ds
@@ -227,14 +396,14 @@ def get_trained_snapshot(cache_dir: str):
     return path
 
 
-def holdout_ground_truth():
+def holdout_ground_truth(n_views: int = N_HOLDOUT, res: int = W):
     """Held-out views (never trained on): -> (cams_packed, gt_srgb list
-    (H, W, 3) over a white background)."""
+    (res, res, 3) over a white background)."""
     from nerf_glasses_tpu.ops.colors import linear_to_srgb
     scene = make_head_scene()
-    cams, _, _ = capture_cameras(N_HOLDOUT,
-                                 phase=math.pi / N_TRAIN)  # between views
-    imgs = render_capture_images([scene], cams)
+    cams, _, _ = capture_cameras(n_views, phase=math.pi / N_TRAIN,
+                                 res=res)                  # between views
+    imgs = render_capture_images([scene], cams, res)
     gts = []
     for img in imgs:
         lin = img[..., :3] + (1.0 - img[..., 3:])  # over white (linear)

@@ -1,10 +1,11 @@
-"""nerf_glasses_tpu — a TPU-native (JAX/XLA/Pallas) hybrid NeRF + mesh renderer.
+"""nerf_glasses_tpu — a JAX (XLA + Pallas) hybrid NeRF + mesh renderer.
 
 A from-scratch re-design of the capabilities of arnerak/nerf-glasses
-(CUDA/OptiX/tiny-cuda-nn) for TPU hardware:
+(CUDA/OptiX/tiny-cuda-nn) in JAX, run on an NVIDIA GPU:
 
-- Instant-NGP hash-grid NeRF inference *and* training (JAX + Pallas kernels)
-- glTF mesh ray-caster with PBR shading (pure XLA, replaces OptiX)
+- Instant-NGP hash-grid NeRF inference *and* training (JAX/XLA)
+- glTF mesh ray-caster with PBR shading (tile-culled; a Pallas Triton
+  kernel on the GPU replaces OptiX)
 - depth-gated hybrid compositing (mesh surfaces occlude / are occluded by
   the volume at the correct depth)
 - iNGP-compatible `.msgpack` snapshot load/save
@@ -13,12 +14,12 @@ A from-scratch re-design of the capabilities of arnerak/nerf-glasses
   workflow runs unchanged.
 
 Layout:
-    ops/       pure functional compute kernels (hash grid, SH, MLP, march,
-               composite, triangle ray-cast) — jnp reference + Pallas fast path
+    ops/       pure functional compute (hash grid, SH, MLP, march,
+               composite, triangle ray-cast) — jnp code + one Pallas kernel
     models/    stateful user-facing objects (Testbed, NerfMeshRenderer)
-    io/        snapshot (msgpack), glTF, NeRF dataset loaders
+    io/        snapshot (MessagePack), glTF, images, NeRF dataset loaders
     train/     hash-grid NeRF training loop
-    parallel/  multi-chip sharding (jax.sharding.Mesh + shard_map)
+    parallel/  multi-device sharding (jax.sharding.Mesh + shard_map)
     utils/     cameras, quaternions, glasses-placement math
 """
 
@@ -26,18 +27,16 @@ __version__ = "0.1.0"
 
 import jax as _jax
 
-# On TPU, jax's DEFAULT matmul precision computes f32-operand matmuls in
-# bf16 on the MXU. Geometry matmuls (camera ray generation `ndc @ cam.T`,
-# the render-aabb local transform `pos @ local.T`, per-image training-ray
-# einsums, mesh-pass transforms) then quantize ray directions/positions
-# to ~3 decimal digits, which breaks the voxel DDA: most rays die and
-# frames render as sparse speckle — on TPU only, deterministically per
-# sub-voxel position (measured: 68% of head pixels empty at default
-# precision, 0% at float32; tools/ + VERDICT round-2 history). Every
-# heavy matmul in this package (the MLPs) passes bf16 operands
-# explicitly and is unaffected by this setting; the f32 matmuls it
-# upgrades are all tiny (Nx3 @ 3x3). Set it before any compute module
-# is imported.
+# Full float32 for float32 matmuls. On the GPU, JAX's DEFAULT precision
+# runs f32-operand matmuls in TF32 (~3 decimal digits of mantissa).
+# Geometry matmuls (camera ray generation `ndc @ cam.T`, the render-aabb
+# local transform `pos @ local.T`, per-image training-ray einsums,
+# mesh-pass transforms) would then quantize ray directions/positions,
+# which breaks the voxel DDA: rays die at sub-voxel positions and frames
+# render as sparse speckle. Every heavy matmul in this package (the
+# MLPs) passes bf16 operands explicitly and is unaffected by this
+# setting; the f32 matmuls it upgrades are all tiny (Nx3 @ 3x3). Set it
+# before any compute module is imported.
 _jax.config.update("jax_default_matmul_precision", "float32")
 
 from nerf_glasses_tpu.config import NGPConfig  # noqa: F401

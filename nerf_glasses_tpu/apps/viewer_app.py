@@ -1,10 +1,10 @@
-"""Interactive browser viewer — the TPU-native windowing/GUI layer.
+"""Interactive browser viewer — the windowing/GUI layer.
 
 The reference renders into a GLFW window with ImGui control panels
 (nerf_mesh_renderer.cu:378-452 window/GL init, :499-541 frame loop,
-:601-893 gui() panels, :896-916 mouse-orbit input handling). A TPU host
-is a headless VM behind a network hop — there is no GL surface to swap —
-so the native equivalent is a tiny zero-dependency HTTP server that
+:601-893 gui() panels, :896-916 mouse-orbit input handling). An
+accelerator host is typically a headless machine behind a network hop —
+there is no GL surface to swap — so the native equivalent is a tiny zero-dependency HTTP server that
 streams rendered frames to a browser canvas and maps the ImGui panel
 actions onto the same `NerfMeshRenderer` methods the reference GUI
 calls:
@@ -21,7 +21,7 @@ calls:
   camera trajectory recorder (:795-827)   POST /api/record_trajectory
   remove floaties (:782-790)              POST /api/remove_floaties
   FPS / VRAM stats panel (:829-874)       GET  /api/stats
-  (TPU-only fast paths)                   POST /api/bake, /api/toggle
+  (fast paths, not in the reference)      POST /api/bake, /api/toggle
 
 Run: `python -m nerf_glasses_tpu.apps.viewer_app --snapshot s.msgpack
 [--mesh glasses.gltf] [--port 8000]`, then open http://localhost:8000.
@@ -30,7 +30,6 @@ Run: `python -m nerf_glasses_tpu.apps.viewer_app --snapshot s.msgpack
 from __future__ import annotations
 
 import argparse
-import io
 import json
 import threading
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
@@ -139,7 +138,7 @@ setInterval(async () => {
 
 class ViewerState:
     """Shared renderer + lock (one device pipeline, many HTTP threads —
-    the TPU analogue of the reference's single CUDA stream)."""
+    the analogue of the reference's single CUDA stream)."""
 
     def __init__(self, renderer):
         self.renderer = renderer
@@ -147,14 +146,12 @@ class ViewerState:
         self.jpeg_quality = 85
 
     def frame_jpeg(self) -> bytes:
-        from PIL import Image
+        from nerf_glasses_tpu.io.images import encode_jpeg
         with self.lock:
             self.renderer.frame()
             img = self.renderer.display_image()[..., :3]
         u8 = np.clip(np.asarray(img) * 255.0, 0, 255).astype(np.uint8)
-        buf = io.BytesIO()
-        Image.fromarray(u8).save(buf, "JPEG", quality=self.jpeg_quality)
-        return buf.getvalue()
+        return encode_jpeg(u8, self.jpeg_quality)
 
     # ---- panel actions (each maps to one reference gui() control) ----
 

@@ -79,21 +79,21 @@ class NGPConfig:
     # aux model in train/trainer.py).
     n_extra_learnable_dims: int = 0
 
-    # TPU-native fast variant: every level is a power-of-2 hash table of
-    # the same size (coarse levels included). Constant table stride and a
-    # constant AND-mask make the whole encode expressible as a compact
-    # Pallas kernel with the table resident in VMEM. Snapshots written
+    # Fast variant: every level is a power-of-2 hash table of the same
+    # size (coarse levels included). Constant table stride and a
+    # constant AND-mask make the whole encode one uniform gather per
+    # level (and a fused encode kernel straightforward). Snapshots written
     # with this variant carry {"hash": "UniformPow2"} in their encoding
     # config; tcnn-compatible snapshots (all_hash=False) use the exact
     # dense-or-hash offset table.
     all_hash: bool = False
 
-    # Wide-row table layout: each table row is padded to 128 floats (one
-    # full TPU vreg / 512B). Measured on v5e: XLA row gathers run at
-    # ~104M rows/s for any width 2..120 but ~394M rows/s at exactly 128
-    # lanes, so padding rows to 128 makes every hash lookup ~3.8x faster
-    # while leaving room for wider features. Storage only — snapshots
-    # keep the compact F features per row. Requires all_hash.
+    # Wide-row table layout: each table row is padded to 128 floats
+    # (512B). Hypothesis: a row gather that moves one aligned 512-byte
+    # row per lookup beats narrow-row gathers by more than the padding
+    # costs, while leaving room for wider features (not measured on the
+    # GPU). Storage only — snapshots keep the compact F features per
+    # row. Requires all_hash.
     wide_rows: bool = False
 
     # Activations applied *outside* the MLPs (testbed.cu:325-345).
@@ -231,10 +231,10 @@ class NGPConfig:
 
     @staticmethod
     def native_fast(aabb_scale: int = 1) -> "NGPConfig":
-        """TPU-native fast variant: 8 levels x 4 features (same 32-wide
-        MLP input as the reference's 16x2) with uniform power-of-2 hash
-        tables. Halves the gather count per sample — the renderer's
-        dominant cost on TPU — at near-equal quality (iNGP Tab. 2 shows
+        """Fast variant: 8 levels x 4 features (same 32-wide MLP input as
+        the reference's 16x2) with uniform power-of-2 hash tables. Halves
+        the gather count per sample — random gathers being the renderer's
+        expected dominant cost — at near-equal quality (iNGP Tab. 2 shows
         (L, F) = (8, 4) within ~0.1-0.3 dB of (16, 2) at equal params)."""
         import math as _math
         return NGPConfig(
@@ -250,10 +250,10 @@ class NGPConfig:
 
     @staticmethod
     def native_wide(aabb_scale: int = 1) -> "NGPConfig":
-        """TPU-native wide variant: 8 levels x 16 features stored in
-        128-float (512B) table rows. Same gather count as native_fast but
-        each gather rides the full-vreg fast path (~3.8x the row rate on
-        v5e) and carries 4x the features per level for quality."""
+        """Wide variant: 8 levels x 16 features stored in 128-float
+        (512B) table rows. Same gather count as native_fast, each gather
+        moving one aligned wide row, and 4x the features per level for
+        quality."""
         import math as _math
         return NGPConfig(
             n_levels=8,

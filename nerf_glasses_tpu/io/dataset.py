@@ -355,8 +355,8 @@ def load_transforms_json(path: str, load_images: bool = True) -> NerfDataset:
             if dp is None or not os.path.exists(dp):
                 depths.append(None)
                 continue
-            from PIL import Image
-            raw = np.asarray(Image.open(dp), np.float32)
+            from nerf_glasses_tpu.io.images import read_image
+            raw = read_image(dp).astype(np.float32)
             if raw.ndim == 3:
                 raw = raw[..., 0]
             depths.append(raw * int_depth_scale * ds.scale)
@@ -410,10 +410,8 @@ def load_training_image(path: str) -> np.ndarray:
     NerfDataset::set_training_image (nerf_loader.cu:756-856 / from_rgba32,
     ngp_common.cuh:192-219).
     """
-    from PIL import Image
-    from nerf_glasses_tpu.ops.colors import srgb_to_linear  # jnp-compatible
-    img = Image.open(path).convert("RGBA")
-    arr = np.asarray(img, np.float32) / 255.0
+    from nerf_glasses_tpu.io.images import read_image
+    arr = read_image(path, "RGBA").astype(np.float32) / 255.0
     alpha = arr[..., 3:4]
     rgb = np.asarray(_srgb_to_linear_np(arr[..., :3])) * alpha
     return np.concatenate([rgb, alpha], axis=-1).astype(np.float32)

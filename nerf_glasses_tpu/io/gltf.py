@@ -301,19 +301,20 @@ def _load_textures(doc, base, buffers):
         img = doc["images"][tex["source"]]
         arr = None
         try:
-            from PIL import Image
-            import io as _io
+            from nerf_glasses_tpu.io.images import decode_image
+            name = img.get("uri", img.get("mimeType", "embedded"))
             if "uri" in img and not img["uri"].startswith("data:"):
-                pil = Image.open(os.path.join(base, img["uri"]))
+                with open(os.path.join(base, img["uri"]), "rb") as f:
+                    data = f.read()
             elif "uri" in img:
-                pil = Image.open(_io.BytesIO(
-                    base64.b64decode(img["uri"].split(",", 1)[1])))
+                name = img["uri"].split(";", 1)[0]
+                data = base64.b64decode(img["uri"].split(",", 1)[1])
             else:
                 view = doc["bufferViews"][img["bufferView"]]
                 buf = buffers[view["buffer"]]
                 o = view.get("byteOffset", 0)
-                pil = Image.open(_io.BytesIO(buf[o:o + view["byteLength"]]))
-            arr = np.asarray(pil.convert("RGBA"), np.float32) / 255.0
+                data = buf[o:o + view["byteLength"]]
+            arr = decode_image(data, "RGBA", name).astype(np.float32) / 255.0
         except Exception:
             arr = None  # e.g. git-lfs stub — degrade to material factors
         out.append(arr)

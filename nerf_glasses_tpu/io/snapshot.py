@@ -29,12 +29,12 @@ from __future__ import annotations
 import dataclasses
 from typing import Optional
 
-import msgpack
 import numpy as np
 
 from nerf_glasses_tpu import constants as C
 from nerf_glasses_tpu.config import NGPConfig
 from nerf_glasses_tpu.io import dataset as ds_io
+from nerf_glasses_tpu.io import messagepack
 from nerf_glasses_tpu.ops.occupancy import (linear_cascades_to_morton,
                                             morton_cascades_to_linear)
 from nerf_glasses_tpu.utils.bbox import BoundingBox
@@ -61,7 +61,7 @@ class Snapshot:
 
 def load_snapshot(path: str) -> Snapshot:
     with open(path, "rb") as f:
-        doc = msgpack.unpackb(f.read(), raw=False, strict_map_key=False)
+        doc = messagepack.unpackb(f.read())
     if "snapshot" not in doc:
         raise ValueError(f"File {path} does not contain a snapshot.")
     snap = doc["snapshot"]
@@ -184,4 +184,4 @@ def save_snapshot(path: str, config: NGPConfig, params_blob_f32: np.ndarray,
         doc["snapshot"]["extra_dims_binary"] = np.asarray(
             extra_dims, np.float32).astype(np.float16).tobytes()
     with open(path, "wb") as f:
-        f.write(msgpack.packb(doc, use_bin_type=True))
+        f.write(messagepack.packb(doc))

@@ -2,7 +2,7 @@
 
 Headless re-design of the reference renderer
 (src/nerf_mesh_renderer.cu, class NerfMeshRenderer): the GLFW/ImGui window
-is not part of the TPU build's capability contract; `frame()` advances the
+is not part of this build's capability contract; `frame()` advances the
 camera/render state and produces the composited framebuffer in memory
 (displayable via `display_image()` / `save_frame()`).
 
@@ -178,9 +178,9 @@ class NerfMeshRenderer:
         (render.py:228 calls this; the reference ships no binding — the
         capability is completed here. Mapping per latlong_to_dir,
         ngp_common.cuh:292-299.)"""
-        from PIL import Image
-        img = Image.open(path).convert("RGB")
-        self._envmap = np.asarray(img, np.float32) / 255.0  # sRGB
+        from nerf_glasses_tpu.io.images import read_image
+        self._envmap = (read_image(path, "RGB").astype(np.float32)
+                        / 255.0)                          # sRGB
 
     # ------------------------------------------------------------------
     # Frame loop
@@ -349,10 +349,10 @@ class NerfMeshRenderer:
         return rgba.reshape(self.render_height, self.render_width, 4)
 
     def save_frame(self, path: str):
-        from PIL import Image
+        from nerf_glasses_tpu.io.images import write_image
         img = self.display_image()
         arr = np.clip(img[::-1, :, :3] * 255.0, 0, 255).astype(np.uint8)
-        Image.fromarray(arr).save(path)
+        write_image(path, arr)
 
     # ------------------------------------------------------------------
     # Density-grid dump / load (nerf_mesh_renderer.cu:239-358)

@@ -15,8 +15,8 @@ This changes rendering output only by (a) the grid's resolution limit on
 the density field and (b) dropped sub-threshold color contributions
 (bounded by sig_threshold per sample). It is an explicit opt-in
 (`Testbed.bake()`), not the default path — the reference renderer has no
-baking (the VDB-acceleration literature, PAPERS.md, motivates it for
-TPU where random gathers are the wall).
+baking (the VDB-acceleration literature, PAPERS.md, motivates it where
+random gathers are the wall).
 """
 
 from __future__ import annotations
@@ -338,9 +338,8 @@ def pack_sigma_bricks(sigma_grid) -> jnp.ndarray:
     corners live inside ONE brick: base voxel i0 (clipped to R-2) has
     local = i0 & 3 <= 3, so corners local..local+1 <= 4.
 
-    125 floats pad to 128 lanes = one 512-byte row, which rides XLA's
-    full-vreg gather fast path on TPU (~3.8x the narrow-row rate
-    measured on v5e) — one gather per sample instead of eight.
+    125 floats pad to 128 = one aligned 512-byte row — one gather per
+    sample instead of eight.
 
     Runs entirely on device under ONE jit (reshape/concat per axis —
     NOT a 125-way strided gather, which cost ~32 s on host at 640^3 and

@@ -3,22 +3,22 @@
 Every compacting loop in the renderer (march epochs, deferred shading,
 significant-sample color, mesh hit shading) needs the same primitive:
 given a boolean mask over N slots, a permutation that lists the True ids
-first (in order), then the False ids — the static-shape TPU analogue of
+first (in order), then the False ids — the static-shape analogue of
 the reference's atomic compaction counters (testbed.cu:1973-2053).
 
 The naive form is two full-length `jnp.cumsum`s, which XLA lowers to
-O(log N) full passes — measured 7.8 ms per call at N=921600 on v5e,
-charged once per march epoch plus once per shade pass. This module
-computes the same permutation with a block-decomposed prefix sum:
+O(log N) full passes, charged once per march epoch plus once per shade
+pass. This module computes the same permutation with a block-decomposed
+prefix sum:
 
   - within-block exclusive prefix: one (N/B, B) x (B, B) matmul against
-    a strict upper-triangular ones matrix — a single MXU pass;
+    a strict upper-triangular ones matrix — one matrix-unit pass;
   - block offsets: one cumsum over N/B block sums (tiny);
   - the dead-side prefix comes for free: a slot's exclusive dead count
     is its global index minus its exclusive alive count.
 
-Measured 2.5x the cumsum formulation end-to-end (see
-tools/profile_march_flash.py history).
+Whether this still beats the cumsum formulation on the GPU is not
+measured.
 """
 
 from __future__ import annotations

@@ -12,12 +12,12 @@ otype=HashGrid, hash=CoherentPrime, interpolation=Linear
 - output:             trilinear interpolation of F=2 features over the 8
                       corners, concatenated level-major (L*F features).
 
-TPU-first layout: the table is a *uniform* (n_levels, S, F) array — every
-level padded to the largest level size — and the encode is a lax.scan
-over levels. This (a) bounds HBM temporaries to one level's working set
-(XLA would otherwise schedule all 16 independent level gathers
-concurrently), and (b) gives the Pallas fast path a single
-constant-stride buffer to DMA per grid step. Conversion to/from the tcnn
+Layout: the table is a *uniform* (n_levels, S, F) array — every level
+padded to the largest level size — and the encode is a lax.scan over
+levels. This (a) bounds device-memory temporaries to one level's working
+set (XLA would otherwise schedule all 16 independent level gathers
+concurrently), and (b) gives a fused encode kernel a single
+constant-stride table. Conversion to/from the tcnn
 packed (offset-table) layout happens only at the snapshot boundary
 (ops/network.py pack_params/unpack_params).
 """
@@ -92,12 +92,11 @@ def corner_indices_and_weights(pos, scale: float, resolution: int,
 def _take_rows(tab, idx):
     """tab (S, W), idx (N, 8) -> (N, 8, W) batched-row gather.
 
-    The backward (scatter-add into the table) dominates the training
-    step. A custom VJP splitting it into 8 per-corner scatters wins the
-    microbenchmark (86 vs 59 M rows/s, tools/profile_scatter.py) but
-    LOSES in the real step (204.3 vs 197.1 ms/step, 3 interleaved
-    rounds on v5e) — XLA schedules the single fused transpose better in
-    context. Keep autodiff's native transpose."""
+    The backward (scatter-add into the table) is expected to dominate
+    the training step. Autodiff's native transpose is kept: a custom VJP
+    splitting it into 8 per-corner scatters is the obvious alternative,
+    and XLA schedules the single fused transpose in context (not
+    measured on the GPU)."""
     return jnp.take(tab, idx.reshape(-1), axis=0).reshape(
         idx.shape + (tab.shape[-1],))
 
@@ -107,13 +106,11 @@ def hash_encode_soa(table: jnp.ndarray, px, py, pz, config: NGPConfig,
     """table: (L, S, W) uniform-padded; px/py/pz: (N,) components in [0,1]
     -> (N, L*F) features (level-major).
 
-    One batched (N*8)-row gather per level — measured fastest on v5e by
-    a wide margin (tools/profile_encode.py): per-level takes from a
-    small table run at ~450M rows/s (the per-level table fits VMEM),
-    3-7x the rate of both an 8-unrolled-corner formulation (64 small
-    gather ops; op overhead dominates) and a levels-fused single-gather
-    formulation (one huge take from the concatenated table; ~1/4 the
-    row rate regardless of output orientation).
+    One batched (N*8)-row gather per level. The alternatives — an
+    8-unrolled-corner formulation (64 small gather ops) and a
+    levels-fused single gather from the concatenated table — are
+    expected to lose to it (per-op overhead, and a table too large to
+    stay in cache); not measured on the GPU.
 
     Per-level constants stay Python values so XLA strength-reduces the
     `% hashmap_size` (a traced divisor compiles to real integer
@@ -149,7 +146,7 @@ def hash_encode(table: jnp.ndarray, pos: jnp.ndarray, config: NGPConfig,
                            config, compute_dtype)
 
 
-WIDE_ROW = 128   # one fp32 vreg row (512B) — see NGPConfig.wide_rows
+WIDE_ROW = 128   # one 512-byte fp32 row — see NGPConfig.wide_rows
 
 
 def table_row_width(config: NGPConfig) -> int:

@@ -2,9 +2,8 @@
 
 tiny-cuda-nn's FullyFusedMLP (src/fully_fused_mlp.cu:636-687) has no biases;
 each layer is y = act(W @ x) with W row-major (n_out, n_in) and half
-precision weights. On TPU we express the whole batch as bf16 matmuls with
-fp32 accumulation so XLA tiles them onto the MXU; a Pallas fused kernel for
-the full NeRF network lives in ops/fused_pallas.py.
+precision weights. Here the whole batch is bf16 matmuls with fp32
+accumulation, which XLA hands to the GPU's tensor cores.
 """
 
 from __future__ import annotations

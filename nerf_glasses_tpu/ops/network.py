@@ -49,11 +49,10 @@ def density_raw_soa(params: Params, px, py, pz, config: NGPConfig,
     encode_dtype is the hash encode's trilinear-sum dtype. It defaults
     to float32 for exactness-sensitive callers (render fidelity
     probes); the TRAINER passes bfloat16 (TrainOptions.encode_dtype) —
-    the f32 weighted sum over (N, 8, W) gathered rows measured as
-    ~half of density_fwd on v5e (tools/profile_step_split.py: 94 ms
-    density_fwd vs 47 ms bf16 encode at the training batch shape), and
-    tcnn's hash tables are natively fp16, so bf16 interpolation is the
-    reference's own precision class."""
+    the f32 weighted sum over (N, 8, W) gathered rows is a large share
+    of density_fwd at the training batch shape, and tcnn's hash tables
+    are natively fp16, so bf16 interpolation is the reference's own
+    precision class."""
     enc = hash_encode_soa(params["grid"], px, py, pz, config,
                           compute_dtype=encode_dtype)
     return mlp_apply(enc, params["density_mlp"], compute_dtype=compute_dtype)
@@ -76,7 +75,7 @@ def apply_network_soa(params: Params, px, py, pz, dx, dy, dz,
                       extra: jnp.ndarray = None,
                       encode_dtype=jnp.float32
                       ) -> Tuple[jnp.ndarray, jnp.ndarray]:
-    """Component-array variant of apply_network (SoA TPU hot path):
+    """Component-array variant of apply_network (SoA hot path):
     px/py/pz (N,) in [0,1], dx/dy/dz (N,) warped directions in [0,1]
     -> (rgb_raw (N,3), sigma_raw (N,))."""
     d_out = density_raw_soa(params, px, py, pz, config, compute_dtype,

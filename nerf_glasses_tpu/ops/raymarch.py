@@ -1,5 +1,5 @@
 """Volumetric ray marching with occupancy-grid skipping and depth-gated
-mesh-surface compositing — the TPU-native core renderer.
+mesh-surface compositing — the core renderer.
 
 Re-design of the reference's NerfTracer pipeline
 (init_rays_with_payload_kernel_nerf  testbed.cu:355-467,
@@ -9,7 +9,7 @@ Re-design of the reference's NerfTracer pipeline
  trace loop                          testbed.cu:1938-2053):
 
 The CUDA implementation is a host-driven loop with atomic ray compaction
-and per-iteration alive-counter readbacks. The TPU translation here is
+and per-iteration alive-counter readbacks. The translation here is
 `march_frame`: ONE compiled dispatch marches a whole frame to completion.
 Inside it, an outer `lax.while_loop` alternates
 
@@ -18,7 +18,7 @@ Inside it, an outer `lax.while_loop` alternates
      compact_kernel_nerf's atomic compaction (testbed.cu:539-562), and
   2. a `fori_loop` over just ceil(n_alive / CHUNK) fixed-size chunks;
      each chunk gathers its ray state, runs an epoch of R rounds x K
-     occupancy-gated samples (network evaluated as bf16 MXU matmuls on
+     occupancy-gated samples (network evaluated as bf16 matmuls on
      the (CHUNK*K) batch), composites, and scatters state back.
 
 So dead rays stop consuming FLOPs after at most one epoch, there are no
@@ -79,11 +79,10 @@ class MarchOptions:
     min_mip: int = 0
     jitter: bool = True
     compute_dtype: str = "bfloat16"
-    # march_frame compaction parameters (tuned on v5e). Paths that run
-    # the NETWORK inside the march want 4096 (bigger MXU batches: the
-    # 720p unbaked frame halved in fps at 2048); the flash path (no
-    # network in the march) wants 2048 (128.7 ms vs 140.8 at 4096 —
-    # set explicitly by the flash option bundles).
+    # march_frame compaction parameters (not yet tuned on the GPU).
+    # Paths that run the NETWORK inside the march use 4096 (bigger
+    # matmul batches); the flash path (no network in the march) uses
+    # 2048, set explicitly by the flash option bundles.
     chunk: int = 1 << 12         # rays per compacted chunk
     rounds_per_epoch: int = 1    # K-sample rounds between compactions
     # Baked-density fast path (ops/bake.py): sigma from a trilinear grid
@@ -105,11 +104,10 @@ class MarchOptions:
     # scan steps of ~25 small ops each. With cone_angle == 0 dt is a
     # global constant; with cone stepping dt is per-ray, constant
     # within the round (see _march_round — slight oversampling,
-    # fidelity-conservative). The sequential path spends the frame budget on
-    # Measured SLOWER end-to-end on v5e (the sequential path's cost is
-    # the occupancy gathers, which the vectorized path repeats per
-    # sample while covering less distance per round); retained as an
-    # alternative for hardware with different dispatch economics.
+    # fidelity-conservative). Off by default on the hypothesis that the
+    # sequential path's cost is the occupancy gathers, which the
+    # vectorized path repeats per sample while covering less distance
+    # per round (not measured on the GPU).
     # Samples in unoccupied voxels get zero alpha instead of being
     # skipped; the per-epoch advance pass still jumps the long empty
     # stretches.
@@ -134,10 +132,8 @@ class MarchOptions:
     # approximation) at feature-grid quantization cost. Ignored when
     # deferred_color is set.
     feat_color: bool = False
-    # Chunk size of the deferred-shade pass (None = the march chunk).
-    # Probed on v5e: decoupling to 8192 for bigger MXU batches LOSES
-    # (6.80 vs 7.21 fps on the hybrid flash frame, same-run interleaved)
-    # — this backend consistently prefers small chunks.
+    # Chunk size of the deferred-shade pass (None = the march chunk;
+    # bigger matmul batches are the untested alternative).
     shade_chunk: int = None
     # Flash init: walk the occupancy grid at 1/lowres_factor resolution
     # (one ray per FxF pixel block), min-filter the first-hit distances
@@ -154,7 +150,7 @@ class MarchOptions:
     # entire 3x3 coarse neighborhood saw no occupancy. True = fast but
     # UNSAFE (an isolated NeRF structure thinner than ~2F px between
     # coarse samples disappears); False = safe but expensive (un-culled
-    # rays all enter the first march epoch: +~95 ms at 720p on v5e).
+    # rays all enter the first march epoch).
     # Scenes carrying "occ_pts" use the VOXEL-SPLAT init instead, which
     # culls safely by construction and ignores this flag.
     lowres_cull: bool = False
@@ -172,16 +168,9 @@ class MarchOptions:
     # silhouette-band alpha error ungated vs 61 dB / 0.009 gated,
     # tests/test_flash_failures.py). Default ON.
     vector_occ_gate: bool = True
-    # NOTE on fused Pallas march kernels: round 3 built (and interpret-
-    # mode-verified) kernels that ran the advance pass / the whole flash
-    # epoch as one dispatch with the skip + baked-density grids resident
-    # in VMEM. They CANNOT lower for real TPUs: Mosaic supports only
-    # same-shape tpu.dynamic_gather lane/sublane shuffles — the hardware
-    # has no vector gather from VMEM, so an arbitrary-row table lookup
-    # inside a kernel is inexpressible (tests/test_tpu_lowering.py
-    # guards the kernels that remain). XLA's HBM gather is the fast
-    # path (tools/profile_encode.py); the advance is instead attacked
-    # by reducing ITERATIONS via the Chebyshev distance grid below.
+    # The advance is attacked by reducing ITERATIONS via the Chebyshev
+    # distance grid below (a fused per-ray march kernel, which could
+    # gather from the grids inside the kernel, is open work).
     # Advance on a distance-to-occupied grid (scene["dist"], built by
     # occupancy.build_dist_grid) instead of the mip jump grid: each
     # iteration hops the full empty Chebyshev ball radius rather than
@@ -228,7 +217,7 @@ def _hash_u32(x: jnp.ndarray) -> jnp.ndarray:
 
 def _radical_inverse(base: int, i: int) -> float:
     """Halton radical inverse of a non-negative integer -> [0,1).
-    Drives the per-sample sub-pixel offset (the TPU stand-in for
+    Drives the per-sample sub-pixel offset (the stand-in for
     random_val.cuh's ld_random_pixel_offset, which the reference feeds a
     scrambled Sobol sequence). Computed on the HOST per frame — as a
     traced fori_loop it cost ~60 serialized scalar device ops."""
@@ -1174,7 +1163,7 @@ def march_frame_impl(params, scene, o, d, surface_rgba, t_surface,
                      sample_index, t_floor=t_floor, alive_mask=alive_mask)
 
     # Per-chunk state traffic: every key gathered/scattered is a separate
-    # gather/scatter op, and op count is what the TPU bills for. Keys
+    # gather/scatter op, and op count is expected to dominate. Keys
     # that are recomputable (o/d via chunk_raygen), constant (surface
     # payload when has_surface=False; t_start when cone==0 — it only
     # feeds calc_dt(t - t_start), constant dt), or positional (alive:

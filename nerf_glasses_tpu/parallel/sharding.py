@@ -1,8 +1,8 @@
 """Multi-chip scaling: shard_map over a jax.sharding.Mesh.
 
 The reference is a single-GPU, single-stream renderer (SURVEY.md §2.9);
-its TPU-native scaling story is pure data parallelism over the ray/pixel
-dimension riding ICI:
+its scaling story here is pure data parallelism over the ray/pixel
+dimension across the devices' interconnect:
 
 - rendering: rays are sharded across chips; the NeRF parameters,
   occupancy grid, and scene constants are replicated (tens of MB — they
@@ -10,14 +10,13 @@ dimension riding ICI:
   no collectives; each chip's tile exits its while_loop independently
   (the multi-chip analogue of ray compaction). Final image assembly is
   the only gather.
-- training: the ray batch is sharded; per-chip gradients are psum'd over
-  ICI before a replicated Adam step (gradients ~ parameter-sized, one
+- training: the ray batch is sharded; per-chip gradients are psum'd
+  before a replicated Adam step (gradients ~ parameter-sized, one
   all-reduce per step).
 
-No DCN is needed at one-slice scale. Tensor/pipeline parallelism are
-intentionally absent: the whole MLP stack is ~50k weights (it lives in
-VMEM), and the march is latency-bound per ray, so sharding anything but
-rays only adds collectives (SURVEY.md §2.9's TPU-native equivalent).
+Tensor/pipeline parallelism are intentionally absent: the whole MLP
+stack is ~50k weights, and the march is latency-bound per ray, so
+sharding anything but rays only adds collectives (SURVEY.md §2.9).
 """
 
 from __future__ import annotations
@@ -151,7 +150,6 @@ def make_hybrid_frame_sharded(mesh: Mesh, tri_mesh, opts,
             i += 1
         opts = _dc.replace(opts, chunk=best)
     f = supersample
-    use_pallas = jax.default_backend() == "tpu"
     flash = opts.lowres_factor > 1
 
     def local(params, scene, xforms, nrm_mats, cam, light, pix_offset,
@@ -171,25 +169,9 @@ def make_hybrid_frame_sharded(mesh: Mesh, tri_mesh, opts,
         d_m = d_m / jnp.linalg.norm(d_m, axis=-1, keepdims=True)
         o_m = jnp.broadcast_to(eye, d_m.shape)
 
-        rot = xforms[tri_mesh.inst_id, :, :3]
-        trans = xforms[tri_mesh.inst_id, :, 3]
-        v0 = jnp.einsum("tij,tj->ti", rot, tri_mesh.v0) + trans
-        e1 = jnp.einsum("tij,tj->ti", rot, tri_mesh.e1)
-        e2 = jnp.einsum("tij,tj->ti", rot, tri_mesh.e2)
-        if use_pallas:
-            from nerf_glasses_tpu.ops.mesh_pallas import (BLOCK,
-                                                          raycast_pallas)
-            tri_scalars = jnp.concatenate([v0, e1, e2], axis=1)
-            pad = (-o_m.shape[0]) % BLOCK
-            o_p = jnp.pad(o_m, ((0, pad), (0, 0)), mode="edge")
-            d_p = jnp.pad(d_m, ((0, pad), (0, 0)), mode="edge")
-            t, tri, uu, vv = raycast_pallas(tri_scalars, o_p, d_p,
-                                            tri_mesh.n_tris)
-            t, tri = t[:hf * wf], tri[:hf * wf]
-            uv = jnp.stack([uu[:hf * wf], vv[:hf * wf]], axis=-1)
-        else:
-            t, tri, uv = tri_ops._raycast_chunked(
-                o_m, d_m, v0, e1, e2, chunk=256, cull_backfaces=True)
+        v0, e1, e2 = tri_ops.world_triangles(tri_mesh, xforms)
+        t, tri, uv = tri_ops._raycast_chunked(
+            o_m, d_m, v0, e1, e2, chunk=256, cull_backfaces=True)
         rgb = tri_ops.shade_hits_compacted(tri_mesh, o_m, d_m, t, tri, uv,
                                            nrm_mats, light, eye)
         hit = tri >= 0

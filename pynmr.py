@@ -1,7 +1,7 @@
 """pynmr — drop-in compatible Python API (reference: src/python_api.cu).
 
 The reference exposes a pybind11 module `pynmr`; this shim re-exports the
-TPU framework's objects under the same names so `volume/render.py` runs
+framework's objects under the same names so `volume/render.py` runs
 unchanged:
 
     import pynmr as nmr

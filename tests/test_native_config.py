@@ -1,4 +1,4 @@
-"""The TPU-native fast config (all_hash uniform pow2 tables, L8xF4) must
+"""The fast native config (all_hash uniform pow2 tables, L8xF4) must
 train as well as the tcnn-layout config and round-trip snapshots."""
 
 import numpy as np
